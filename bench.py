@@ -1,13 +1,13 @@
-"""Benchmark: MIS path-tracer throughput — Cornell + sponza-class city.
+"""Benchmark: MIS path-tracer throughput — Cornell + the textured city.
 
-Prints TWO JSON lines (the driver captures the tail; the LAST line is the
-big-scene metric that corresponds to what BASELINE.md actually measures):
+Prints one JSON line per scene:
 
-  1. Cornell test_035 (the r1-r3 continuity metric; megakernel fast path).
-  2. A 262k-triangle synthetic city (hydracore3_tpu/scene/synth.py) — the
-     reference's perf ledger is defined on sponza-class scenes of exactly
-     this size (testing/perf.txt:2-8); rendered through the HBM-streaming
-     Pallas BVH path (accel/traverse_stream.py).
+  1. Cornell test_035 (needs the reference scene library; skipped with a
+     note when it is absent).
+  2. The textured 215k-triangle synthetic city
+     (hydracore3/scene/synth.py), the sponza-class scene the reference's
+     perf ledger is defined on (testing/perf.txt:2-8), rendered through the
+     per-ray BVH kernel (accel/traverse_gpu.py).
 
 Baselines (BASELINE.md, RTX 4090): test_102 798 ms @ 1024^2x1024spp =
 1344 Msamples/s; sponza 2282 ms = 470 Msamples/s.
@@ -27,8 +27,8 @@ CORNELL = '/root/reference/scenes/test_035/statex_00001.xml'
 def _count_rays(scene, meta, n_px=1 << 16):
     import jax
     import jax.numpy as jnp
-    from hydracore3_tpu.models import integrator_pt as IPT
-    from hydracore3_tpu.ops import rng as RNG
+    from hydracore3.models import integrator_pt as IPT
+    from hydracore3.ops import rng as RNG
     pix = jnp.arange(min(n_px, meta.width * meta.height), dtype=jnp.int32)
     cnt = jax.jit(lambda r: IPT.count_rays_pass(scene, meta, r, pix))(
         RNG.gen_init(pix))
@@ -36,23 +36,20 @@ def _count_rays(scene, meta, n_px=1 << 16):
 
 
 def bench_cornell():
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu import render as R
+    from hydracore3.scene import build as SB
+    from hydracore3 import render as R
 
     width, height = 1024, 768
     spp = int(os.environ.get('BENCH_SPP', '64'))
     scene, meta = SB.load_scene(CORNELL, width=width, height=height)
 
-    tile = 1 << 15  # XLA path: VMEM-resident intermediates (see render.py)
-    regen = os.environ.get('BENCH_REGEN', '1') != '0'
-    # warmup compiles the SAME executables as the timed run (megakernel
-    # unrolls k=16 samples per dispatch: spp=16 warms it)
-    R.render(scene, meta, spp=16, integrator='mispt', tile_size=tile,
-             regen=regen)
+    tile = 1 << 15
+    # warmup compiles the same executable as the timed run
+    R.render(scene, meta, spp=16, integrator='mispt', tile_size=tile)
 
     t0 = time.time()
     out = R.render(scene, meta, spp=spp, integrator='mispt', tile_size=tile,
-                   regen=regen, return_timing=True)
+                   return_timing=True)
     dt = time.time() - t0
     img, timing = out if isinstance(out, tuple) else (out, {})
     samples = timing.get('samples', width * height * spp)
@@ -69,78 +66,68 @@ def bench_cornell():
 
 
 def _city_scale_checks(scene, meta, img):
-    """At-scale correctness riders on the bench (VERDICT r4 weak #4):
+    """At-scale correctness riders on the city:
 
-    1. PSNR of the 8x-downsampled render vs the committed golden
-       (tests/goldens/city_bench_128.npz, rendered by this same pipeline
-       at spp=16 — pins scale-only regressions in march/stream/shading
-       on the REAL 345k-tri scene, which CPU-tier tests cannot afford).
-    2. Nearest-hit parity march-vs-BVH-walk on a 131k-ray camera batch
-       over the full soup (QCAP/CELL_CAP/MARCH_MAX edges live at scale).
-    Returns dict of extra JSON fields; never raises (reports -1 instead).
+    1. ``trace_parity``: share of 131k camera rays on which the kernel and
+       the XLA oracle (``intersect_bvh``) hit the same triangle, times the
+       share of those whose t agrees (rtol 1e-4), over the full soup.
+    2. ``psnr_vs_golden``: PSNR of the 8x-downsampled render vs the
+       committed golden (tests/goldens/city_bench_128.npz, this pipeline's
+       own spp=16 render).
     """
     import numpy as np
+    import jax.numpy as jnp
+    from hydracore3.accel import traverse as ACC
+    from hydracore3.accel import traverse_gpu as TG
+    from hydracore3.models import integrator_pt as IPT
+    from hydracore3.ops import rng as RNG
     out = {}
-    try:
-        import jax.numpy as jnp
-        from hydracore3_tpu.accel import traverse_dda as TDD
-        from hydracore3_tpu.accel import traverse_stream as TST
-        from hydracore3_tpu.models import integrator_pt as IPT
-        from hydracore3_tpu.ops import rng as RNG
-        N = 1 << 17
-        pix = jnp.arange(N, dtype=jnp.int32) * 7 % (meta.width * meta.height)
-        st, _ = IPT.kernel_init_eye_ray(scene, meta, RNG.gen_init(pix), pix)
-        tmin = jnp.zeros((N,), jnp.float32)
-        tmax = jnp.full((N,), 3.0e38, jnp.float32)
-        mt, mtri, *_ = TDD.intersect_march(scene.st_grid, scene.st_tris,
-                                           st.ray_pos, st.ray_dir, tmin, tmax)
-        wt, wtri, *_ = TST.intersect_stream(scene.st_nodes_f, scene.st_nodes_i,
-                                            scene.st_tris, st.ray_pos,
-                                            st.ray_dir, tmin, tmax)
-        mh = np.asarray(mtri) >= 0
-        wh = np.asarray(wtri) >= 0
-        agree = (mh == wh)
-        both = mh & wh
-        agree_t = np.isclose(np.asarray(mt)[both], np.asarray(wt)[both],
-                             rtol=1e-3, atol=1e-4)
-        out['trace_parity'] = round(float(agree.mean() * agree_t.mean()), 5)
-    except Exception:
-        out['trace_parity'] = -1.0
-    try:
-        g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                 'tests', 'goldens', 'city_bench_128.npz'))
-        gold = g['img'].astype(np.float32)
-        im = np.asarray(img).reshape(meta.height, meta.width,
-                                     -1)[..., :3].astype(np.float32)
-        H, W = im.shape[0], im.shape[1]
-        ds = im.reshape(128, H // 128, 128, W // 128, 3).mean((1, 3))
-        mse = float(np.mean((ds - gold) ** 2))
-        peak = max(float(gold.max()), 1e-9)
-        out['psnr_vs_golden'] = round(10.0 * np.log10(peak * peak
-                                                      / max(mse, 1e-20)), 2)
-    except FileNotFoundError:
-        out['psnr_vs_golden'] = -1.0
-    except Exception:
-        out['psnr_vs_golden'] = -1.0
+    N = 1 << 17
+    pix = jnp.arange(N, dtype=jnp.int32) * 7 % (meta.width * meta.height)
+    st, _ = IPT.kernel_init_eye_ray(scene, meta, RNG.gen_init(pix), pix)
+    tmin = jnp.zeros((N,), jnp.float32)
+    tmax = jnp.full((N,), 3.0e38, jnp.float32)
+    kt, ktri, _, _ = TG.intersect(scene.kn_nodes, scene.kn_tris, st.ray_pos,
+                                  st.ray_dir, tmin, tmax)
+    bvh = dict(bmin=scene.bvh_bmin, bmax=scene.bvh_bmax, skip=scene.bvh_skip,
+               tri_offset=scene.bvh_tri_offset, tri_count=scene.bvh_tri_count)
+    oh = ACC.intersect_bvh(bvh, scene.tri_v0, scene.tri_e1, scene.tri_e2,
+                           scene.tri_inst_id, scene.tri_geom_id,
+                           scene.tri_prim_id, st.ray_pos, st.ray_dir, tmin,
+                           tmax)
+    ktri, otri = np.asarray(ktri), np.asarray(oh.soup_id)
+    same = ktri == otri
+    both = same & (ktri >= 0)
+    agree_t = np.isclose(np.asarray(kt)[both], np.asarray(oh.t)[both],
+                         rtol=1e-4)
+    out['trace_parity'] = float(same.mean() * agree_t.mean())
+
+    g = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'tests', 'goldens', 'city_bench_128.npz'))
+    gold = g['img'].astype(np.float32)
+    im = np.asarray(img).reshape(meta.height, meta.width,
+                                 -1)[..., :3].astype(np.float32)
+    H, W = im.shape[0], im.shape[1]
+    ds = im.reshape(128, H // 128, 128, W // 128, 3).mean((1, 3))
+    mse = float(np.mean((ds - gold) ** 2))
+    peak = max(float(gold.max()), 1e-9)
+    out['psnr_vs_golden'] = 10.0 * np.log10(peak * peak / max(mse, 1e-20))
     return out
 
 
 def bench_city():
-    from hydracore3_tpu.scene import synth
-    from hydracore3_tpu import render as R
+    from hydracore3.scene import synth
+    from hydracore3 import render as R
 
     spp = int(os.environ.get('BENCH_BIG_SPP', '4'))
     # textured=True: procedural facades + asphalt + env sky map, so the
-    # bench carries sponza-class SHADING load (BASELINE.md rows 2-3 are
-    # textured), not just sponza-class geometry (VERDICT r4 item 3)
+    # bench carries sponza-class shading load (BASELINE.md rows 2-3 are
+    # textured), not just sponza-class geometry
     scene, meta = synth.city_scene(width=1024, height=1024, depth=5,
                                    textured=True)
-    assert meta.use_stream, 'city must route through the streamed BVH'
+    assert meta.use_kernel, 'the city must route to the GPU kernel'
 
-    # whole-image tiles (1M rays in flight): denser cell population after
-    # the per-bounce ray sort keeps shrinking march flushes/ray — the
-    # density ladder measured 0.080 / 0.172 / 0.245 / 0.291 Ms/s at
-    # 32k / 131k / 524k / 1M rays per pass (docs/PERF_NOTES.md r5)
+    # whole-image tiles: 1M rays in flight per dispatch
     tile = 1 << 20
     R.render(scene, meta, spp=1, integrator='mispt', tile_size=tile)
 
@@ -152,7 +139,7 @@ def bench_city():
     rays_per_sample = _count_rays(scene, meta)
     extra = _city_scale_checks(scene, meta, img)
     print(json.dumps({
-        'metric': 'mis_pt_city262k_throughput',
+        'metric': 'mis_pt_city215k_throughput',
         'value': round(msamples_s, 3),
         'unit': 'Msamples/s',
         'vs_baseline': round(msamples_s / BASELINE_BIG_MSAMPLES, 5),
@@ -164,7 +151,11 @@ def bench_city():
 
 
 def main():
-    bench_cornell()
+    if os.path.exists(CORNELL):
+        bench_cornell()
+    else:
+        print(f'bench: Cornell scene {CORNELL} not found; skipped',
+              file=sys.stderr)
     if os.environ.get('BENCH_BIG', '1') != '0':
         bench_city()
 

@@ -2,10 +2,10 @@
 //
 // The reference builds its BVHs in native code (Embree3 via
 // external/CrossRT/EmbreeRT.cpp:489, Vulkan AS via VulkanRTX.cpp); this is
-// the TPU framework's equivalent: a fast host-side builder that emits the
-// flat skip-pointer node arrays consumed by the JAX/Pallas traversal
-// (hydracore3_tpu/accel/traverse.py).  Same output contract as the pure
-// Python builder in hydracore3_tpu/accel/build_bvh.py (which remains the
+// this renderer's equivalent: a fast host-side builder that emits the
+// flat skip-pointer node arrays consumed by the JAX traversal and the GPU
+// kernel (hydracore3/accel/traverse.py, traverse_gpu.py).  Same output contract as the pure
+// Python builder in hydracore3/accel/build_bvh.py (which remains the
 // fallback when this library is unavailable): nodes in DFS pre-order, an
 // internal node's hit-successor is i+1, its miss-successor is skip[i];
 // leaves reference a contiguous range of reordered triangles.

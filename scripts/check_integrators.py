@@ -1,8 +1,8 @@
 """Estimator consistency check: naive vs shadow vs MIS PT on Cornell."""
 import numpy as np
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu import render as R
-from hydracore3_tpu.utils.imageio import psnr, save_ldr
+from hydracore3.scene import build as SB
+from hydracore3 import render as R
+from hydracore3.utils.imageio import psnr, save_ldr
 
 scene, meta = SB.load_scene('/root/reference/scenes/test_035/statex_00001.xml', width=64, height=48)
 imgs = {}

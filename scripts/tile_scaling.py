@@ -8,9 +8,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu import render as R
-from hydracore3_tpu.ops import rng as RNG
+from hydracore3.scene import build as SB
+from hydracore3 import render as R
+from hydracore3.ops import rng as RNG
 
 CORNELL = '/root/reference/scenes/test_035/statex_00001.xml'
 

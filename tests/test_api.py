@@ -5,7 +5,7 @@ commits and renders it through the exact same pipeline as the CLI.
 """
 import numpy as np
 
-from hydracore3_tpu import api as HR
+from hydracore3 import api as HR
 
 
 def _quad(p0, p1, p2, p3):
@@ -56,7 +56,7 @@ def test_simple_lights_and_remap_lists(tmp_path):
     """hydra_api surface completion (VERDICT r4 missing #7): point/spot/
     sphere lights and per-instance material remap lists round-trip through
     commit() into the loaded scene."""
-    from hydracore3_tpu.scene.build import (
+    from hydracore3.scene.build import (
         LIGHT_GEOM_POINT, LIGHT_GEOM_SPHERE)
     ctx = HR.hr2_create_scene()
     red = ctx.material_create(name='red', diffuse_color=(0.6, 0.1, 0.1))

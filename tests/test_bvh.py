@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hydracore3_tpu.accel import build_bvh, traverse as ACC
+from hydracore3.accel import build_bvh, traverse as ACC
 
 
 def _random_soup(n, seed=0):
@@ -75,3 +75,27 @@ def test_bvh_any_hit():
                           jnp.asarray(e2[order]), jnp.asarray(geom[order]),
                           jnp.asarray(pos), jnp.asarray(d), tmin, tmax)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+
+
+def test_bvh_miss_with_tmax_above_sentinel():
+    """t_max at float32's max (the integrator's live-ray interval) is above
+    the FLT_MAX miss sentinel: a leaf the ray's box test reaches but whose
+    triangles it misses must not report a hit."""
+    v0, e1, e2 = _random_soup(200, seed=4)
+    bvh = build_bvh.build(v0, e1, e2)
+    order = bvh.order
+    v0, e1, e2 = v0[order], e1[order], e2[order]
+    pos, d = _rays(256, seed=5)
+    arrs = {k: jnp.asarray(getattr(bvh, k))
+            for k in ('bmin', 'bmax', 'skip', 'tri_offset', 'tri_count')}
+    z = jnp.zeros(len(v0), jnp.int32)
+    tmax = jnp.full((256,), float(np.finfo(np.float32).max))
+    hit = ACC.intersect_bvh(arrs, jnp.asarray(v0), jnp.asarray(e1),
+                            jnp.asarray(e2), z, z, z, jnp.asarray(pos),
+                            jnp.asarray(d), jnp.zeros(256), tmax)
+    ref = ACC.intersect_brute(jnp.asarray(v0), jnp.asarray(e1),
+                              jnp.asarray(e2), z, z, z, jnp.asarray(pos),
+                              jnp.asarray(d), jnp.zeros(256), tmax)
+    np.testing.assert_array_equal(np.asarray(hit.soup_id) >= 0,
+                                  np.asarray(ref.soup_id) >= 0)
+    assert (np.asarray(hit.soup_id) < 0).any()

@@ -10,8 +10,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from hydracore3_tpu import camera_plugin as CP
-from hydracore3_tpu import render as R
+from hydracore3 import camera_plugin as CP
+from hydracore3 import render as R
 
 pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 

@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from hydracore3_tpu import render as R
-from hydracore3_tpu.utils import checkpoint as CKPT
+from hydracore3 import render as R
+from hydracore3.utils import checkpoint as CKPT
 
 
 def test_pytree_roundtrip(tmp_path):

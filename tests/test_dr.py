@@ -10,8 +10,8 @@ pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
 @pytest.fixture(scope='module')
 def dr_setup():
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu.models import dr as DR
+    from hydracore3.scene import build as SB
+    from hydracore3.models import dr as DR
     scene, meta = SB.load_scene('/root/reference/scenes/test_035/statex_00001.xml',
                                 width=16, height=12)
     # texture slot 1 is the 256x256 cube texture (texture1.bmp chunk)
@@ -20,8 +20,8 @@ def dr_setup():
 
 
 def test_gradients_finite_and_nonzero(dr_setup):
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu.ops import rng as RNG
+    from hydracore3.models import dr as DR
+    from hydracore3.ops import rng as RNG
     scene, meta, setup = dr_setup
     N = meta.width * meta.height
     pix = jnp.arange(N, dtype=jnp.int32)
@@ -39,8 +39,8 @@ def test_gradients_finite_and_nonzero(dr_setup):
 def test_gradient_matches_finite_difference(dr_setup):
     """Directional derivative vs central finite differences on the same
     sample sequence (deterministic RNG makes the comparison exact-ish)."""
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu.ops import rng as RNG
+    from hydracore3.models import dr as DR
+    from hydracore3.ops import rng as RNG
     scene, meta, setup = dr_setup
     N = meta.width * meta.height
     pix = jnp.arange(N, dtype=jnp.int32)
@@ -68,8 +68,8 @@ def test_gradient_matches_finite_difference(dr_setup):
 
 def test_optimization_reduces_loss(dr_setup):
     """A few Adam iterations must reduce the loss toward a reference render."""
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu import render as R
+    from hydracore3.models import dr as DR
+    from hydracore3 import render as R
     scene, meta, setup = dr_setup
     ref_img = np.asarray(R.render(scene, meta, spp=16, integrator='mispt'))
     params, losses = DR.optimize_texture(scene, meta, setup, ref_img,
@@ -89,9 +89,9 @@ def test_drmain_configuration_50_iters():
     iterations — only the render resolution is reduced (drmain renders
     512x512; CI uses 64x48) to keep CPU wall time sane.  Asserts the loss
     decreases overall and ends below a fixed bound (VERDICT r4 item 8a)."""
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu import render as R
+    from hydracore3.scene import build as SB
+    from hydracore3.models import dr as DR
+    from hydracore3 import render as R
     scene, meta = SB.load_scene(
         '/root/reference/scenes/test_035/statex_00001.xml',
         width=64, height=48)
@@ -117,7 +117,7 @@ def test_drmain_configuration_50_iters():
 def test_regularizers_match_definitions():
     import numpy as np
     import jax.numpy as jnp
-    from hydracore3_tpu.models import dr as DR
+    from hydracore3.models import dr as DR
     rng = np.random.default_rng(0)
     d = rng.normal(size=17).astype(np.float32)
     expect = sum((d[i] - d[i-1])**2 + (d[i] - d[i+1])**2
@@ -148,8 +148,8 @@ def test_material_param_grads(cornell_scene):
     color column is non-zero and matches finite differences."""
     import numpy as np
     import jax.numpy as jnp
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu.ops import rng as RNG
+    from hydracore3.models import dr as DR
+    from hydracore3.ops import rng as RNG
     scene, meta = cornell_scene
     setup = DR.DiffMatSetup(mat_ids=(0,), cols=(0, 1, 2))
     n = meta.width * meta.height
@@ -171,7 +171,7 @@ def test_material_param_grads(cornell_scene):
 def test_whitted_ad_grads(cornell_scene):
     import numpy as np
     import jax.numpy as jnp
-    from hydracore3_tpu.models import dr as DR
+    from hydracore3.models import dr as DR
     scene, meta = cornell_scene
     setup = DR.put_diff_tex(scene, 1 if scene.textures.offset.shape[0] > 1 else 0)
     n = meta.width * meta.height
@@ -187,8 +187,8 @@ def test_whitted_ad_grads(cornell_scene):
 
 def test_optimize_texture_scan_loss_decreases(dr_setup):
     import numpy as np
-    from hydracore3_tpu.models import dr as DR
-    from hydracore3_tpu import render as R
+    from hydracore3.models import dr as DR
+    from hydracore3 import render as R
     scene, meta, setup = dr_setup
     ref = R.render(scene, meta, spp=16, integrator='mispt')
     params, losses = DR.optimize_texture_scan(

@@ -22,8 +22,8 @@ CORNELL = '/root/reference/scenes/test_035/statex_00001.xml'
 
 def test_zero_thickness_film_is_plain_fresnel():
     import jax.numpy as jnp
-    from hydracore3_tpu.bsdf import film as F
-    from hydracore3_tpu.bsdf import common as C
+    from hydracore3.bsdf import film as F
+    from hydracore3.bsdf import common as C
     cos_i = np.linspace(0.05, 1.0, 32)
     r, t = F.fr_film(cos_i, 1.0 + 0j, 1.38 + 0j, 1.5 + 0j, 0.0, 550.0, xp=np)
     r_ref = np.array(C.fr_dielectric(jnp.asarray(cos_i), 1.5))
@@ -32,7 +32,7 @@ def test_zero_thickness_film_is_plain_fresnel():
 
 
 def test_quarter_wave_antireflection_null():
-    from hydracore3_tpu.bsdf import film as F
+    from hydracore3.bsdf import film as F
     n_f = np.sqrt(1.5)
     thick = 550.0 / (4.0 * n_f)
     r, _ = F.fr_film(np.array([1.0]), 1.0 + 0j, n_f + 0j, 1.5 + 0j,
@@ -42,7 +42,7 @@ def test_quarter_wave_antireflection_null():
 
 
 def test_multilayer_matches_single_layer():
-    from hydracore3_tpu.bsdf import film as F
+    from hydracore3.bsdf import film as F
     iors = [np.full(8, 1.0 + 0j), np.full(8, 1.38 + 0j), np.full(8, 1.5 + 0j)]
     cos_i = np.linspace(0.1, 1.0, 8)
     rm, tm = F.mult_fr_film(cos_i, iors, [300.0], 550.0, xp=np)
@@ -54,7 +54,7 @@ def test_multilayer_matches_single_layer():
 
 def test_metal_substrate_film_reflectance_reasonable():
     """Gold-ish substrate under a dielectric film: R in (0,1], T = 0."""
-    from hydracore3_tpu.bsdf import film as F
+    from hydracore3.bsdf import film as F
     r, t = F.fr_film(np.linspace(0.1, 1.0, 16), 1.0 + 0j, 1.45 + 0j,
                      0.2 + 3.0j, 200.0, 550.0, xp=np)
     assert (r > 0.0).all() and (r <= 1.0 + 1e-5).all()
@@ -62,8 +62,8 @@ def test_metal_substrate_film_reflectance_reasonable():
 
 
 def test_precompute_tables_shapes_and_range():
-    from hydracore3_tpu.scene import build_film as BF
-    from hydracore3_tpu.bsdf.film import (FILM_ANGLE_RES, FILM_LENGTH_RES,
+    from hydracore3.scene import build_film as BF
+    from hydracore3.bsdf.film import (FILM_ANGLE_RES, FILM_LENGTH_RES,
                                           FILM_THICKNESS_RES)
     inval = BF.INVALID_ID
     spec_tab = BF.precompute_film_spectral(
@@ -132,9 +132,9 @@ def _film_scene_xml(tmp_path, transparent):
 
 @pytest.mark.parametrize('transparent', [False, True])
 def test_film_render_end_to_end(tmp_path, transparent):
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu import render as R
-    from hydracore3_tpu.scene.build import MAT_TYPE_THIN_FILM
+    from hydracore3.scene import build as SB
+    from hydracore3 import render as R
+    from hydracore3.scene.build import MAT_TYPE_THIN_FILM
     path = _film_scene_xml(str(tmp_path), transparent)
     scene, meta = SB.load_scene(path, os.path.dirname(CORNELL),
                                 width=32, height=24)
@@ -147,8 +147,8 @@ def test_film_render_end_to_end(tmp_path, transparent):
 def test_film_render_spectral():
     """Spectral mode: single-layer film, direct Airy path (no tables)."""
     import tempfile
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu import render as R
+    from hydracore3.scene import build as SB
+    from hydracore3 import render as R
     with tempfile.TemporaryDirectory() as td:
         path = _film_scene_xml(td, transparent=False)
         scene, meta = SB.load_scene(path, os.path.dirname(CORNELL),
@@ -163,7 +163,7 @@ def test_transfer_matrix_vs_recursive_airy():
     recursive Airy combination (airy_reflectance.h:102-209) — both compute
     the exact multilayer R/T; sign/phase bugs show up immediately."""
     import numpy as np
-    from hydracore3_tpu.bsdf import film as F
+    from hydracore3.bsdf import film as F
 
     rng = np.random.default_rng(1)
     cos_i = np.linspace(0.05, 1.0, 40)
@@ -210,7 +210,7 @@ def test_transfer_matrix_vs_recursive_airy():
 
 def test_transfer_matrix_single_layer_vs_fr_film():
     import numpy as np
-    from hydracore3_tpu.bsdf import film as F
+    from hydracore3.bsdf import film as F
     cos_i = np.linspace(0.05, 1.0, 64)
     eta_i = np.full_like(cos_i, 1.0, np.complex128)
     eta_f = np.full_like(cos_i, 1.45, np.complex128)

@@ -16,8 +16,8 @@ import os
 import numpy as np
 import pytest
 
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu import render as R
+from hydracore3.scene import build as SB
+from hydracore3 import render as R
 
 # golden tier: 256x256 @ 32-64 spp CPU renders vs reference-binary goldens
 # take tens of minutes EACH (the XLA CPU render is ~100x slower than chip);
@@ -121,7 +121,7 @@ def test_gbuffer_vs_reference():
     2.4, depth min-max normalized. The 16 Hammersley sample offsets are
     deterministic, so agreement is quantization-limited."""
     import jax.numpy as jnp
-    from hydracore3_tpu.models import gbuffer as GB
+    from hydracore3.models import gbuffer as GB
 
     g = load_golden('test_035_gbuffer')
     scene, meta = cornell()
@@ -187,7 +187,7 @@ def test_mlt_vs_reference():
     reference's `-integrator mlt` final output (main.cpp:480-491,
     integrator_kmlt.cpp:446-477) — VERDICT r3 weak-point 5: the previous
     test only checked image MEAN within 12%."""
-    from hydracore3_tpu import cli as CLI
+    from hydracore3 import cli as CLI
     g = load_golden('test_035_mlt')['img'].astype(np.float32)
     scene, meta = cornell()
     img = CLI.render_mlt_merged(scene, meta, spp=48)

@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hydracore3_tpu.accel import traverse as ACC
+from hydracore3.accel import traverse as ACC
 
 
 def _soup(tris):

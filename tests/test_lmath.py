@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hydracore3_tpu.utils import lmath as LM
+from hydracore3.utils import lmath as LM
 
 
 def test_normalize():

@@ -7,7 +7,7 @@ pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
 
 def test_mutate_kelemen_range():
-    from hydracore3_tpu.models.kmlt import mutate_kelemen
+    from hydracore3.models.kmlt import mutate_kelemen
     rng = np.random.default_rng(0)
     v = jnp.asarray(rng.uniform(size=4096).astype(np.float32))
     r1 = jnp.asarray(rng.uniform(size=4096).astype(np.float32))
@@ -24,8 +24,8 @@ def test_mlt_brightness_matches_pt(cornell_scene):
     """MLT is unbiased after brightness normalization: image mean must match
     the plain MIS PT mean (the reference prints avg brightness as its own
     sanity metric, integrator_kmlt.cpp:451-453)."""
-    from hydracore3_tpu.models import kmlt, integrator_pt as IPT
-    from hydracore3_tpu import render as R
+    from hydracore3.models import kmlt, integrator_pt as IPT
+    from hydracore3 import render as R
     scene, meta = cornell_scene
     img_mlt = kmlt.render_mlt(scene, meta, spp=32, n_chains=2048,
                               render_layer=IPT.FB_COLOR,

@@ -21,7 +21,7 @@ def _one_tri():
 
 
 def test_brute_motion_lerp():
-    from hydracore3_tpu.accel import traverse as ACC
+    from hydracore3.accel import traverse as ACC
     v0, e1, e2, deltas = _one_tri()
     inst = jnp.zeros(1, jnp.int32)
     pos = jnp.array([[0.5, 1.0, 0.25],   # above original tri
@@ -43,8 +43,8 @@ def test_brute_motion_lerp():
 
 
 def test_bvh_motion_lerp():
-    from hydracore3_tpu.accel import traverse as ACC
-    from hydracore3_tpu.accel import build_bvh
+    from hydracore3.accel import traverse as ACC
+    from hydracore3.accel import build_bvh
     v0, e1, e2, deltas = _one_tri()
     b = build_bvh.build(np.asarray(v0), np.asarray(e1), np.asarray(e2),
                         motion_end=(np.asarray(v0 + deltas[0]),
@@ -65,8 +65,8 @@ def test_bvh_motion_lerp():
 
 
 def test_motion_scene_end_to_end():
-    from hydracore3_tpu.scene import build as SB
-    from hydracore3_tpu import render as R
+    from hydracore3.scene import build as SB
+    from hydracore3 import render as R
     scene, meta = SB.load_scene(MOTION_XML, width=32, height=24)
     assert meta.has_motion
     assert float(jnp.abs(scene.tri_dv0).max()) > 0.1

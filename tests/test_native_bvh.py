@@ -8,7 +8,7 @@ bit-for-bit; traversal correctness is covered by test_bvh.py.
 import numpy as np
 import pytest
 
-from hydracore3_tpu.accel import build_bvh as BB
+from hydracore3.accel import build_bvh as BB
 
 
 @pytest.fixture(scope='module')

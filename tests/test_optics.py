@@ -11,7 +11,7 @@ pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
 
 def _meta_with_lens(lines, phys=(0.036, 0.024)):
-    from hydracore3_tpu.scene.build import SceneMeta
+    from hydracore3.scene.build import SceneMeta
     return SceneMeta(width=8, height=8, trace_depth=1, spp=1, num_lights=0,
                      num_materials=1, lens_lines=tuple(lines),
                      phys_size=phys)
@@ -20,7 +20,7 @@ def _meta_with_lens(lines, phys=(0.036, 0.024)):
 def _fan_from_film(meta, n=64):
     """Point source at film center shooting a fan at the rear element."""
     import jax.numpy as jnp
-    from hydracore3_tpu.models import integrator_pt as IPT
+    from hydracore3.models import integrator_pt as IPT
     rear_z = meta.lens_lines[0][1]
     rear_r = meta.lens_lines[0][3]
     xs = np.linspace(-0.8, 0.8, n) * rear_r
@@ -68,7 +68,7 @@ def test_back_focal_plane_collimates():
 def test_aperture_stop_culls():
     """A tiny stop between the film and the lens kills off-axis rays."""
     import jax.numpy as jnp
-    from hydracore3_tpu.models import integrator_pt as IPT
+    from hydracore3.models import integrator_pt as IPT
     lines = [(0.0, 0.02, 0.0, 0.0005)] + _biconvex(0.03)
     meta = _meta_with_lens(lines)
     n = 64
@@ -88,9 +88,9 @@ def test_optic_sim_camera_rays():
     """sample_camera_ray with a lens stack produces finite rays and marks
     failed ones as under-the-floor (integrator_pt.cpp:93-97)."""
     import jax.numpy as jnp
-    from hydracore3_tpu.models import integrator_pt as IPT
-    from hydracore3_tpu.ops import rng as RNG
-    from hydracore3_tpu.scene import build as SB
+    from hydracore3.models import integrator_pt as IPT
+    from hydracore3.ops import rng as RNG
+    from hydracore3.scene import build as SB
     scene, meta0 = SB.load_scene('/root/reference/scenes/test_035/statex_00001.xml',
                                  width=16, height=16)
     import dataclasses

@@ -1,18 +1,18 @@
-"""End-to-end render through the Pallas cluster-traversal path.
+"""End-to-end render through the per-ray BVH kernel.
 
-Builds a >4096-triangle scene via the in-process API (so load_scene picks
-use_pallas) and checks the full MIS-PT render against the same scene
-forced down the brute-force path — identical sample streams and triangle
-order, so images agree to float tolerance.
+Builds a 5408-triangle scene via the in-process API, routes it to the
+kernel (Pallas interpreter on the CPU) and checks the full MIS-PT render
+against the same scene forced down the brute-force path — identical sample
+streams and triangle order, so images agree to float tolerance.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 
-from hydracore3_tpu import api as HR
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu import render as R
+from hydracore3 import api as HR
+from hydracore3.scene import build as SB
+from hydracore3 import render as R
 
 pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
@@ -40,7 +40,7 @@ def tessellated_quad(n, y, scale=4.0, flip=False):
 def big_scene(tmp_path_factory):
     hr = HR.hr2_create_scene()
     white = hr.material_create(name='white', diffuse_color=(0.7, 0.7, 0.7))
-    # floor: 52x52 grid = 5408 triangles (> the 4096 pallas threshold)
+    # floor: 52x52 grid = 5408 triangles
     pos, idx = tessellated_quad(52, 0.0)
     floor = hr.mesh_from_data(pos, idx,
                               mat_indices=np.full(len(idx) // 3, white))
@@ -51,18 +51,20 @@ def big_scene(tmp_path_factory):
                   half_length=1.0, matrix=lmat)
     hr.camera_set(pos=(0, 5, 9), look_at=(0, 0, 0), up=(0, 1, 0), fov=45)
     hr.settings_set(width=64, height=48, depth=3, spp=1)
-    out = str(tmp_path_factory.mktemp('pallas_scene'))
+    out = str(tmp_path_factory.mktemp('kernel_scene'))
     hr.commit(out_dir=out)
     import os
     return os.path.join(out, 'statex_00001.xml')
 
 
 def test_pallas_render_matches_brute(big_scene):
-    scene, meta = SB.load_scene(big_scene, width=64, height=48)
-    assert meta.use_pallas, 'scene should select the pallas path'
+    scene, meta = SB.load_scene(big_scene, width=64, height=48,
+                                accel='kernel')
+    assert meta.use_kernel, 'scene should select the kernel path'
+    meta = dataclasses.replace(meta, kernel_interpret=True)
     img_p = R.render(scene, meta, spp=4, integrator='mispt')
 
-    meta_b = dataclasses.replace(meta, use_pallas=False, use_bvh=False)
+    meta_b = dataclasses.replace(meta, use_kernel=False, use_bvh=False)
     img_b = R.render(scene, meta_b, spp=4, integrator='mispt')
 
     # same soup order and same RNG streams: only the nearest-hit reduction

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 
 
 def test_dim0_van_der_corput():
-    from hydracore3_tpu.ops import qmc
+    from hydracore3.ops import qmc
     t = jnp.asarray(qmc.nied_table())
     vals = np.array([float(qmc.rnd_float(t, jnp.uint32(i), 0)) for i in range(8)])
     np.testing.assert_allclose(vals, [0.0, 0.5, 0.25, 0.75, 0.125, 0.625, 0.375, 0.875],
@@ -13,7 +13,7 @@ def test_dim0_van_der_corput():
 
 def test_stratification():
     """First 2^k points of every dim must be a (0,1)-stratified set."""
-    from hydracore3_tpu.ops import qmc
+    from hydracore3.ops import qmc
     t = jnp.asarray(qmc.nied_table())
     pos = jnp.arange(256, dtype=jnp.uint32)
     for d in range(qmc.QRNG_DIMENSIONS):
@@ -30,7 +30,7 @@ def test_qmc_dim_assignment_table():
     Dims 0/1 are always pixel position; 2/3 lens when DoF (thin lens OR
     optics sim) is on.  (spd_dim, mat_dim, lgt_dim) per (dof, spd, motion),
     zero meaning 'feature off / served by the pseudo RNG'."""
-    from hydracore3_tpu import render as R
+    from hydracore3 import render as R
 
     class M:  # minimal SceneMeta stand-in: _qmc_dims touches only these
         def __init__(self, dof, spd, motion, optics=False):
@@ -58,8 +58,8 @@ def test_qmc_dim_assignment_table():
 
 def test_qmc_render_matches_pseudo(cornell_scene):
     """QMC and pseudo renders estimate the same image (PSNR)."""
-    from hydracore3_tpu import render as R
-    from hydracore3_tpu.utils.imageio import psnr
+    from hydracore3 import render as R
+    from hydracore3.utils.imageio import psnr
     from conftest import box_downsample
     scene, meta = cornell_scene
     a = np.asarray(R.render(scene, meta, spp=16, integrator='mispt'))

@@ -13,7 +13,7 @@ pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
 @pytest.fixture(scope='module')
 def small_render(cornell_scene):
-    from hydracore3_tpu import render as R
+    from hydracore3 import render as R
     scene, meta = cornell_scene
     img = R.render(scene, meta, spp=8, integrator='mispt')
     return np.asarray(img)
@@ -46,8 +46,8 @@ def test_walls_colored(small_render):
 
 def test_mis_vs_shadow_consistency(cornell_scene):
     """Different estimators, same integral: images must agree (PSNR)."""
-    from hydracore3_tpu import render as R
-    from hydracore3_tpu.utils.imageio import psnr
+    from hydracore3 import render as R
+    from hydracore3.utils.imageio import psnr
     from conftest import box_downsample
     scene, meta = cornell_scene
     a = np.asarray(R.render(scene, meta, spp=24, integrator='mispt'))
@@ -63,7 +63,7 @@ def test_mis_vs_shadow_consistency(cornell_scene):
 def test_rng_advances_across_passes(cornell_scene):
     """Two 1-spp renders accumulated must differ from one 1-spp render
     (passes must not repeat the sample sequence)."""
-    from hydracore3_tpu import render as R
+    from hydracore3 import render as R
     scene, meta = cornell_scene
     img1 = np.asarray(R.render(scene, meta, spp=1))
     img2 = np.asarray(R.render(scene, meta, spp=2))

@@ -3,7 +3,7 @@ the reference's crandom.h semantics, and masked draws must freeze state."""
 import numpy as np
 import jax.numpy as jnp
 
-from hydracore3_tpu.ops import rng as RNG
+from hydracore3.ops import rng as RNG
 
 
 def _scalar_next(state):

@@ -7,7 +7,7 @@ pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 
 
 def test_cast_single_ray(cornell_scene):
-    from hydracore3_tpu.models import integrator_rt as IRT
+    from hydracore3.models import integrator_rt as IRT
     scene, meta = cornell_scene
     N = meta.width * meta.height
     pix = jnp.arange(N, dtype=jnp.int32)
@@ -21,7 +21,7 @@ def test_cast_single_ray(cornell_scene):
 
 
 def test_whitted_raytrace(cornell_scene):
-    from hydracore3_tpu.models import integrator_rt as IRT
+    from hydracore3.models import integrator_rt as IRT
     scene, meta = cornell_scene
     N = meta.width * meta.height
     pix = jnp.arange(N, dtype=jnp.int32)
@@ -41,8 +41,8 @@ def test_whitted_rotated_light_attenuation():
     emits toward +X: a camera on +X sees the bright face, a camera on -X
     sees the dark back face."""
     import jax.numpy as jnp
-    from hydracore3_tpu import api as HR
-    from hydracore3_tpu.models import integrator_rt as IRT
+    from hydracore3 import api as HR
+    from hydracore3.models import integrator_rt as IRT
 
     def build(cam_pos):
         ctx = HR.hr2_create_scene()
@@ -71,7 +71,7 @@ def test_whitted_rotated_light_attenuation():
 
 
 def test_gbuffer(cornell_scene):
-    from hydracore3_tpu.models import gbuffer as GB
+    from hydracore3.models import gbuffer as GB
     scene, meta = cornell_scene
     N = meta.width * meta.height
     pix = jnp.arange(N, dtype=jnp.int32)

@@ -3,9 +3,9 @@ and multi-channel EXR export (imageutils.cpp spectral 3D EXR)."""
 import numpy as np
 import pytest
 
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu import render as R
-from hydracore3_tpu.utils import imageio as IIO
+from hydracore3.scene import build as SB
+from hydracore3 import render as R
+from hydracore3.utils import imageio as IIO
 
 pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 

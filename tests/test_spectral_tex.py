@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hydracore3_tpu.scene import build as SB
-from hydracore3_tpu.bsdf import dispatch as MAT
-from hydracore3_tpu import render as R
+from hydracore3.scene import build as SB
+from hydracore3.bsdf import dispatch as MAT
+from hydracore3 import render as R
 
 pytestmark = pytest.mark.heavy  # full-render compile: run via `pytest -m heavy`
 

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hydracore3_tpu.accel import two_level as TL
-from hydracore3_tpu.accel import traverse as TRV
+from hydracore3.accel import two_level as TL
+from hydracore3.accel import traverse as TRV
 
 
 def make_mesh(rng, n_tris, scale=1.0):

@@ -2,9 +2,9 @@
 // observed usage (HydraCore3 includes "LiteMath.h" from the not-checked-out
 // msu-graphics-group/LiteMath submodule).  Only exists so the reference CPU
 // binary (-DUSE_VULKAN=OFF) can be built in this environment to produce
-// golden images for validating hydracore3_tpu.  NOT part of the framework.
+// golden images for validating hydracore3.  NOT part of the framework.
 //
-// Conventions (matching hydracore3_tpu/utils/lmath.py, which round-1 derived
+// Conventions (matching hydracore3/utils/lmath.py, which round-1 derived
 // from the reference's call sites):
 //   * float4x4 is a logically row-major matrix stored as 4 columns m_col[4]
 //     with get_row/set_row/get_col/set_col accessors.
@@ -502,7 +502,7 @@ namespace LiteMath
     return r;
   }
 
-  // GL-style projection (matches hydracore3_tpu/utils/lmath.py:146)
+  // GL-style projection (matches hydracore3/utils/lmath.py:146)
   static inline float4x4 perspectiveMatrix(float fovYDeg, float aspect,
                                            float zNear, float zFar)
   {
@@ -522,7 +522,7 @@ namespace LiteMath
     return m;
   }
 
-  // world->camera (matches hydracore3_tpu/utils/lmath.py:167)
+  // world->camera (matches hydracore3/utils/lmath.py:167)
   static inline float4x4 lookAt(float3 eye, float3 center, float3 up)
   {
     float3 z = normalize(eye - center);

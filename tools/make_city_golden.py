@@ -9,8 +9,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from hydracore3_tpu.scene import synth
-from hydracore3_tpu import render as R
+from hydracore3.scene import synth
+from hydracore3 import render as R
 
 
 def main():

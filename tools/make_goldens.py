@@ -23,7 +23,7 @@ SCENES = '/root/reference/scenes'
 OUT = os.path.join(REPO, 'tests/goldens')
 
 sys.path.insert(0, REPO)
-from hydracore3_tpu.utils import imageio as IIO  # noqa: E402
+from hydracore3.utils import imageio as IIO  # noqa: E402
 
 # (name, scene, extra args)  — 256x256, high spp
 RUNS = [
